@@ -1,15 +1,16 @@
 """Benchmark entry point: prints ONE JSON line with the headline metric.
 
-Three measurements (VERDICT r2 items 3/4: the round-1 bench was blind to
-the walk kernel, textures, the layered BSDF, and the backward pass):
+Runs on a GPU only: it fails where JAX's first device is not one, and the
+line names the device, the card and its power limit.
+
+Three measurements:
 
   value            Mrays/s forward on the Cornell preset (256x256, 2 bounces
-                   + NEE) - kept as the headline for vs_baseline continuity
-                   with rounds 1-2.
+                   + NEE).
   hall_mrays_s     Mrays/s forward on the 338k-triangle textured multi-
                    material hall preset (all 5 material types, alpha-cutout
-                   foliage) - exercises the chunk-BVH walk kernels, the
-                   layered BSDF, and texturing: the real production path.
+                   foliage) - exercises BVH traversal, the layered BSDF,
+                   and texturing: the real production path.
   fwd_bwd_mrays_s  Mrays/s through a full material-gradient training step
                    (render + L2 loss + grad wrt the material table) on the
                    layered material-test scene - the BASELINE.md
@@ -21,15 +22,9 @@ the walk kernel, textures, the layered BSDF, and the backward pass):
 Ray accounting: every bounce processes the full wavefront (radiance ray +
 NEE shadow ray per lane per bounce), so rays = pixels * bounces * 2 per
 frame.
-
-vs_baseline: ratio against the oldest recorded BENCH_r*.json headline (the
-round-1 number). The reference publishes no throughput numbers to compare
-against (BASELINE.md).
 """
-import glob
 import json
 import os
-import re
 import sys
 import time
 
@@ -48,6 +43,14 @@ def _bench(fn, *args):
 def main():
     import jax
     import jax.numpy as jnp
+
+    from optixpathtracer_tpu.runtime import (card_info, enable_compile_cache,
+                                             require_gpu, set_xla_flags)
+    set_xla_flags()
+    enable_compile_cache()
+    dev = require_gpu()
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices()), "card": card_info()}
 
     from optixpathtracer_tpu.dist import make_mesh, material_grad_step
     from optixpathtracer_tpu.integrate.path import render_sample
@@ -101,18 +104,17 @@ def main():
                   file=sys.stderr, flush=True)
             return None
 
-    # 1) headline: Cornell forward (rounds 1-2 continuity)
+    # 1) headline: Cornell forward
     cornell = measure(
         "cornell_fwd", lambda: forward_mrays("scene3_cornell", 256, 256,
                                              frames=8))
 
-    # 2) hall forward: 338k tris, walk kernels, textures, all lobes
+    # 2) hall forward: 338k tris, BVH traversal, textures, all lobes
     hall = measure("hall_fwd", lambda: forward_mrays("hall", 256, 256,
                                                      frames=2))
 
     # 3) fwd+bwd: material-gradient TRAINING LOOP on the layered scene.
-    # Round-5 shape (VERDICT r4 item 3): 256x256 and the whole multi-step
-    # loop runs on-device (lax.fori_loop chaining material_grad_step's
+    # 256x256 and the whole multi-step loop runs on-device (lax.fori_loop chaining material_grad_step's
     # updated scene into the next step), so the number is a production
     # training-loop rate, not a single dispatch-sensitive step.
     def fwd_bwd_mrays():
@@ -140,29 +142,13 @@ def main():
 
     fwd_bwd = measure("fwd_bwd", fwd_bwd_mrays)
 
-    baseline = None
-    for path in sorted(glob.glob(os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "BENCH_r*.json")),
-            key=lambda p: int(re.search(r"r(\d+)", p).group(1))):
-        try:
-            with open(path) as f:
-                prev = json.load(f)
-            # the driver wraps our line under "parsed"; accept both shapes
-            rec = prev.get("parsed") or prev
-            baseline = float(rec["value"])
-            break
-        except Exception:
-            continue
-
-    rnd = lambda x: round(x, 3) if x is not None else None
-    vs = cornell / baseline if (baseline and cornell) else 1.0
     print(json.dumps({
         "metric": "Mrays/s (fwd path trace, cornell 256x256, 2 bounces+NEE)",
-        "value": rnd(cornell),
+        "value": cornell,
         "unit": "Mrays/s",
-        "vs_baseline": round(vs, 3),
-        "hall_mrays_s": rnd(hall),
-        "fwd_bwd_mrays_s": rnd(fwd_bwd),
+        "hall_mrays_s": hall,
+        "fwd_bwd_mrays_s": fwd_bwd,
+        "device": device,
     }))
     if cornell is None or hall is None or fwd_bwd is None:
         sys.exit(1)

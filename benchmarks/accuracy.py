@@ -12,7 +12,7 @@ ACCURACY.md and BASELINE.json["published"].
 Comparison convention: goldens are 8-bit sRGB PNGs, so images are compared
 as sRGB-encoded [0,1] arrays (what PBRT's imgtool sees after PNG decode).
 Renders default to 480x270 with goldens area-downsampled to match; use
---width 1920 --height 1080 on TPU for the full-resolution numbers.
+--width 1920 --height 1080 on the GPU for the full-resolution numbers.
 
 Usage:
     python benchmarks/accuracy.py [--spp 256] [--width 480] [--height 270]

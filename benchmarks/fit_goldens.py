@@ -23,9 +23,8 @@ publishes them exactly (`main.cpp:10-17`); only the unshipped glTF
 asset's geometry/materials are unknown. --unfreeze cam,lights adds them
 to the FD set.
 
-Uses intersect method='pallas': the dense engine reads tri_v0/e1/e2
-directly and rebuilds cluster AABBs per call, so replayed geometry has no
-stale acceleration structure.
+Uses intersect method='brute': it reads tri_v0/e1/e2 directly, so
+replayed geometry has no stale acceleration structure.
 
 Usage:
     python benchmarks/fit_goldens.py --scene diffuse [--rounds 6]
@@ -100,7 +99,7 @@ def main():
         pos, iv, ip = replay.raygen_with(params, w, h)
         acc = jnp.zeros((h, w, 3), jnp.float32)
         img = render_chunk(s, pos, iv, ip, w, h, acc, frame0, spp, 2,
-                           "pallas", False, lobes, use_tex, False,
+                           "brute", False, lobes, use_tex, False,
                            flat_shading=False)
         # undo the running mean's global frame weighting -> plain mean
         return img * (frame0.astype(jnp.float32) + spp) / spp

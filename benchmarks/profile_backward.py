@@ -1,8 +1,8 @@
 """Backward-pass stage breakdown + roofline (VERDICT r4 item 3).
 
-PROFILE.md's forward tables cover the render; the training step's other
-half - reverse-mode through the wavefront - was unprofiled. This script
-measures, on the default device at 256x256 on the layered scene:
+The training step's backward half - reverse-mode through the wavefront -
+against its forward. This script measures, on the default device at
+256x256 on the layered scene:
 
   fwd              jitted forward render_sample
   fwd+bwd          value_and_grad of mean(render) wrt the material table
@@ -15,8 +15,7 @@ The intersection engines run detached (hit ids carry no tangents,
 intersect/api.py), so the backward sweep re-traverses NOTHING: its cost is
 the VJP of shading (the layered walk dominates - its backward replays the
 10-step lax.fori walk with rematerialized intermediates) plus the
-refinement VJP. Both are VPU-flop-bound like their forwards; AD residuals
-add HBM traffic but stay far below the 819 GB/s bound at 65k lanes.
+refinement VJP.
 
 Usage: python benchmarks/profile_backward.py [--scene layered] [--res 256]
 """

@@ -2,7 +2,9 @@
 record the evidence (VERDICT r4 item 5): wall-clock, spp achieved, output
 hashes, and MSE/FLIP vs the reference goldens where they exist.
 
-Writes CAMPAIGN.json (machine) and prints a markdown table (for README).
+Writes DIR/campaign.json (machine) and prints a markdown table. Each config
+renders in a CLI child process that has the device to itself: this parent
+pins its own JAX to the CPU, so it never takes a card's memory.
 
 Usage: python benchmarks/run_configs.py [--configs 1,2,3,4,5] [--out DIR]
 """
@@ -19,6 +21,8 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+CHILD_ENV = dict(os.environ)
+os.environ["JAX_PLATFORMS"] = "cpu"  # the parent's metrics stay off the card
 
 GOLDEN_SCENES = {"diffuse", "conductor", "dielectric", "dielectric20",
                  "layered"}
@@ -50,7 +54,7 @@ def main():
         proc = subprocess.run(
             [sys.executable, "-m", "optixpathtracer_tpu.cli",
              "--config", cfg_path],
-            cwd=REPO, capture_output=True, text=True)
+            cwd=REPO, env=CHILD_ENV, capture_output=True, text=True)
         dt = time.time() - t0
         ok = proc.returncode == 0
         row = {"config": os.path.basename(cfg_path), "scene": cfg["scene"],
@@ -70,14 +74,12 @@ def main():
         rays = (cfg["width"] * cfg["height"] * cfg["spp"]
                 * cfg["max_bounces"] * 2)
         row["mrays_s"] = round(rays / dt / 1e6, 3)
-        if cfg["scene"] in GOLDEN_SCENES and cfg.get("out_png"):
-            import numpy as np
-            from PIL import Image
+        if cfg["scene"] in GOLDEN_SCENES and cfg.get("out_exr"):
             from benchmarks.accuracy import load_golden
+            from optixpathtracer_tpu.film import read_exr, to_display
             from optixpathtracer_tpu.film.metrics import flip, mse
-            ours = np.asarray(Image.open(
-                os.path.join(REPO, cfg["out_png"])).convert("RGB"),
-                np.float32) / 255.0
+            ours = to_display(read_exr(os.path.join(REPO, cfg["out_exr"]))
+                              )[::-1].astype("float32") / 255.0
             g = load_golden(cfg["scene"], cfg["width"], cfg["height"],
                             pbrt=True)
             row["mse_vs_pbrt"] = float(mse(ours, g))
@@ -86,7 +88,7 @@ def main():
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    with open(os.path.join(REPO, "CAMPAIGN.json"), "w") as f:
+    with open(os.path.join(args.out, "campaign.json"), "w") as f:
         json.dump({"rows": rows, "note":
                    "BASELINE config campaign via the public CLI "
                    "(benchmarks/run_configs.py)"}, f, indent=1)

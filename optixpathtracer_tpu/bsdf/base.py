@@ -1,6 +1,6 @@
 """BSDF sample record and shared conventions.
 
-TPU-native equivalent of reference `PBRT/BSDFSample.h:5-15` plus the
+JAX equivalent of reference `PBRT/BSDFSample.h:5-15` plus the
 alpha-mapping/smoothness rules from `source/Renderer/OptiX/Surface.h:22-30`.
 
 Every BSDF in this package exposes the triple

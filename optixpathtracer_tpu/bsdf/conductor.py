@@ -1,6 +1,6 @@
 """Rough/smooth conductor BRDF: Torrance-Sparrow with exact complex Fresnel.
 
-TPU-native equivalent of reference `PBRT/Conductor.h:97-190`. The complex IOR
+JAX equivalent of reference `PBRT/Conductor.h:97-190`. The complex IOR
 is derived from the (clamped) reflectance color: eta = 1, k = 2 sqrt(r)/
 sqrt(1-r) (`Conductor.h:54-92`). Smooth surfaces (alpha < 1e-3) reduce to a
 perfect mirror delta lobe.

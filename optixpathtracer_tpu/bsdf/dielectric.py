@@ -1,6 +1,6 @@
 """Smooth + rough dielectric BSDF (reflection and transmission).
 
-TPU-native equivalent of reference `PBRT/Dielectric.h`. The reference
+JAX equivalent of reference `PBRT/Dielectric.h`. The reference
 hard-codes IOR 1.5 (`Dielectric.h:97,147,291`); here eta is a traced
 parameter defaulting to 1.5 so gradients flow to it (BASELINE.md target),
 with the same default behavior.

@@ -1,6 +1,6 @@
 """Layered glossy-diffuse BSDF: dielectric coat over a Lambertian base.
 
-TPU-native re-design of reference `PBRT/GlossyDiffuse.h` (PBRT-v4 LayeredBxDF
+Vectorized re-design of reference `PBRT/GlossyDiffuse.h` (PBRT-v4 LayeredBxDF
 specialized to top = dielectric, bottom = diffuse, two-sided, no interlayer
 medium; constants thickness=0.01, maxDepth=10, nSamples=5, g=0, mediaAlbedo=0
 per `GlossyDiffuse.h:144-152,375-381`).
@@ -11,10 +11,11 @@ an approximation):
 * `mediaAlbedo == 0` means the walk always advances to the *other* interface
   each step (`GlossyDiffuse.h:263-267,473-477`), so the interface sequence is
   deterministic: entering through the top, depth 0 hits the bottom, depth 1
-  the top, alternating. We therefore unroll the walk with *static* interface
-  parity instead of a traced interface flag - every unrolled step evaluates
-  only one interface's lobes, which XLA fuses far better than a per-lane
-  dynamic switch.
+  the top, alternating. We therefore walk in (bottom, top) pairs, one
+  lax.fori_loop trip per pair, with *static* interface parity inside the
+  trip instead of a traced interface flag - every step evaluates only one
+  interface's lobes, which XLA fuses far better than a per-lane dynamic
+  switch, and the compiled program holds one pair, not maxDepth steps.
 * Two-sidedness flips wo (and wi for f()) into the +z hemisphere up front
   (`GlossyDiffuse.h:162-165,388-392`).
 * For f(): the exit interface is the bottom only when wo,wi are in opposite
@@ -36,6 +37,7 @@ leading axis.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core import rng
@@ -76,6 +78,19 @@ def transmittance(dz, w):
 
 def _nonzero3(c):
     return jnp.any(c != 0.0, axis=-1)
+
+
+def _pair_walk(bottom, top, carry, max_depth: int):
+    """Run depth = 0 .. max_depth-1 of a layer walk: bottom(depth, carry)
+    at even depths, top(depth, carry) at odd ones, as one lax.fori_loop over
+    (bottom, top) pairs (plus a last bottom step when max_depth is odd)."""
+    def pair(i, c):
+        return top(2 * i + 1, bottom(2 * i, c))
+
+    carry = jax.lax.fori_loop(0, max_depth // 2, pair, carry)
+    if max_depth % 2:
+        carry = bottom(max_depth - 1, carry)
+    return carry
 
 
 def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
@@ -146,73 +161,86 @@ def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
     wis_weight = (abs_cos_theta(wis.direction)[..., None] * tr_thick_wis[..., None]
                   * wis.color / jnp.where(wis.pdf == 0.0, 1.0, wis.pdf)[..., None])
 
-    # Unrolled walk; interface parity is static: even depth -> bottom
-    # (Lambert), odd -> top (dielectric reflection). See module docstring.
-    for depth in range(max_depth):
-        # Russian roulette from the decorrelated stream
-        # (`GlossyDiffuse.h:253-260`).
-        if depth > 3:
-            beta_max = jnp.max(beta, axis=-1)
-            rr_on = alive & (beta_max < 0.25)
-            q = jnp.maximum(0.0, 1.0 - beta_max)
-            seed_rr, u_rr = rng.rnd(seed_rr)
-            die = rr_on & (u_rr < q)
-            boost = jnp.where(rr_on & ~die,
-                              1.0 / jnp.where(q < 1.0, 1.0 - q, 1.0), 1.0)
-            beta = beta * boost[..., None]
-            alive = alive & ~die
+    # The walk alternates interfaces: even depth -> bottom (Lambert), odd
+    # -> top (dielectric reflection); see the module docstring. One
+    # lax.fori_loop trip runs a (bottom, top) pair, so interface parity
+    # stays static inside the body and the compiled program holds one
+    # copy of each step instead of max_depth.
+    def roulette(depth, seed_rr, beta, alive):
+        """Russian roulette from the decorrelated stream, from depth 4 on
+        (`GlossyDiffuse.h:253-260`); a no-op (stream not advanced) before."""
+        on = depth > 3
+        beta_max = jnp.max(beta, axis=-1)
+        rr_on = on & alive & (beta_max < 0.25)
+        q = jnp.maximum(0.0, 1.0 - beta_max)
+        seed_next, u_rr = rng.rnd(seed_rr)
+        die = rr_on & (u_rr < q)
+        boost = jnp.where(rr_on & ~die,
+                          1.0 / jnp.where(q < 1.0, 1.0 - q, 1.0), 1.0)
+        return (jnp.where(on, seed_next, seed_rr), beta * boost[..., None],
+                alive & ~die)
 
+    def bottom(depth, c):
+        seed_outer, seed_rr, beta, alive, w, walk_f = c
+        seed_rr, beta, alive = roulette(depth, seed_rr, beta, alive)
         # Advance through the layer (`GlossyDiffuse.h:263-267`).
         beta = beta * transmittance(thickness, w)[..., None]
+        # NEE toward the presampled wis direction
+        # (`GlossyDiffuse.h:328-337`).
+        ph_w = power_heuristic(
+            wis.pdf, _diffuse.pdf(-w, -wis.direction))
+        wt1 = jnp.where(exit_spec_b, 1.0, ph_w)
+        nee1 = (beta * _diffuse.f(alb_b, -w, -wis.direction)
+                * wt1[..., None] * wis_weight)
+        walk_f = walk_f + jnp.where(alive[..., None], nee1, 0.0)
 
-        if depth % 2 == 0:
-            # --- bottom (non-exit, Lambert) interface
-            # NEE toward the presampled wis direction
-            # (`GlossyDiffuse.h:328-337`).
-            ph_w = power_heuristic(
-                wis.pdf, _diffuse.pdf(-w, -wis.direction))
-            wt1 = jnp.where(exit_spec_b, 1.0, ph_w)
-            nee1 = (beta * _diffuse.f(alb_b, -w, -wis.direction)
-                    * wt1[..., None] * wis_weight)
-            walk_f = walk_f + jnp.where(alive[..., None], nee1, 0.0)
+        # Sample the Lambert base (`GlossyDiffuse.h:342-347`).
+        seed_outer, bs = _diffuse.sample(seed_outer, alb_b, -w)
+        bs_ok = (bs.valid & _nonzero3(bs.color) & (bs.pdf != 0.0)
+                 & (bs.direction[..., 2] != 0.0))
+        new_beta = (beta * bs.color
+                    * abs_cos_theta(bs.direction)[..., None]
+                    / jnp.where(bs.pdf == 0.0, 1.0, bs.pdf)[..., None])
 
-            # Sample the Lambert base (`GlossyDiffuse.h:342-347`).
-            seed_outer, bs = _diffuse.sample(seed_outer, alb_b, -w)
-            bs_ok = (bs.valid & _nonzero3(bs.color) & (bs.pdf != 0.0)
-                     & (bs.direction[..., 2] != 0.0))
-            new_beta = (beta * bs.color
-                        * abs_cos_theta(bs.direction)[..., None]
-                        / jnp.where(bs.pdf == 0.0, 1.0, bs.pdf)[..., None])
+        # NEE through the (rough) exit coat along the new direction
+        # (`GlossyDiffuse.h:349-361`).
+        f_exit = _dielectric.f(rough_b, -bs.direction, wi_b, eta=eta,
+                               radiance_mode=True)
+        exit_pdf = _dielectric.pdf(rough_b, -bs.direction, wi_b, eta=eta,
+                                   reflection=False, transmission=True)
+        wt2 = power_heuristic(bs.pdf, exit_pdf)
+        nee2 = (new_beta * transmittance(thickness, bs.direction)[..., None]
+                * f_exit * wt2[..., None])
+        contrib2_on = alive & bs_ok & ~exit_spec_b & _nonzero3(f_exit)
+        walk_f = walk_f + jnp.where(contrib2_on[..., None], nee2, 0.0)
 
-            # NEE through the (rough) exit coat along the new direction
-            # (`GlossyDiffuse.h:349-361`).
-            f_exit = _dielectric.f(rough_b, -bs.direction, wi_b, eta=eta,
-                                   radiance_mode=True)
-            exit_pdf = _dielectric.pdf(rough_b, -bs.direction, wi_b, eta=eta,
-                                       reflection=False, transmission=True)
-            wt2 = power_heuristic(bs.pdf, exit_pdf)
-            nee2 = (new_beta * transmittance(thickness, bs.direction)[..., None]
-                    * f_exit * wt2[..., None])
-            contrib2_on = alive & bs_ok & ~exit_spec_b & _nonzero3(f_exit)
-            walk_f = walk_f + jnp.where(contrib2_on[..., None], nee2, 0.0)
+        alive = alive & bs_ok
+        beta = jnp.where(alive[..., None], new_beta, beta)
+        w = jnp.where(alive[..., None], bs.direction, w)
+        return seed_outer, seed_rr, beta, alive, w, walk_f
 
-            alive = alive & bs_ok
-            beta = jnp.where(alive[..., None], new_beta, beta)
-            w = jnp.where(alive[..., None], bs.direction, w)
-        else:
-            # --- top (exit, dielectric) interface: reflection back down
-            # (`GlossyDiffuse.h:315-325`).
-            seed_outer, bs = _dielectric.sample(
-                seed_outer, rough_b, -w, eta=eta, radiance_mode=True,
-                reflection=True, transmission=False)
-            bs_ok = (bs.valid & _nonzero3(bs.color) & (bs.pdf != 0.0)
-                     & (bs.direction[..., 2] != 0.0))
-            new_beta = (beta * bs.color
-                        * abs_cos_theta(bs.direction)[..., None]
-                        / jnp.where(bs.pdf == 0.0, 1.0, bs.pdf)[..., None])
-            alive = alive & bs_ok
-            beta = jnp.where(alive[..., None], new_beta, beta)
-            w = jnp.where(alive[..., None], bs.direction, w)
+    def top(depth, c):
+        seed_outer, seed_rr, beta, alive, w, walk_f = c
+        seed_rr, beta, alive = roulette(depth, seed_rr, beta, alive)
+        beta = beta * transmittance(thickness, w)[..., None]
+        # Reflection back down off the exit interface
+        # (`GlossyDiffuse.h:315-325`).
+        seed_outer, bs = _dielectric.sample(
+            seed_outer, rough_b, -w, eta=eta, radiance_mode=True,
+            reflection=True, transmission=False)
+        bs_ok = (bs.valid & _nonzero3(bs.color) & (bs.pdf != 0.0)
+                 & (bs.direction[..., 2] != 0.0))
+        new_beta = (beta * bs.color
+                    * abs_cos_theta(bs.direction)[..., None]
+                    / jnp.where(bs.pdf == 0.0, 1.0, bs.pdf)[..., None])
+        alive = alive & bs_ok
+        beta = jnp.where(alive[..., None], new_beta, beta)
+        w = jnp.where(alive[..., None], bs.direction, w)
+        return seed_outer, seed_rr, beta, alive, w, walk_f
+
+    carry = (seed_outer, seed_rr, beta, alive, w, walk_f)
+    carry = _pair_walk(bottom, top, carry, max_depth)
+    walk_f = carry[5]
 
     total = f_acc + jnp.sum(walk_f, axis=0)
     return seed, total / float(n_samples)
@@ -266,24 +294,28 @@ def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
 
     alb_b = jnp.broadcast_to(albedo, batch + (3,))
 
-    for depth in range(max_depth):
-        # Russian roulette (`GlossyDiffuse.h:432-439`).
-        if depth > 3:
-            # pdf products can underflow to denormals; f/denormal = inf and
-            # the masked backward of the ratio then NaNs (0 * -f/pdf^2).
-            # A stand-in of 1.0 keeps the same behavior (rr_beta >= 0.25
-            # means no roulette) with finite partials.
-            pdf_ok = pdf_val > 1e-20
-            rr_beta = jnp.where(
-                pdf_ok,
-                jnp.max(f_val, axis=-1) / jnp.where(pdf_ok, pdf_val, 1.0),
-                1.0)
-            rr_on = walking & (rr_beta < 0.25)
-            q = jnp.maximum(0.0, 1.0 - rr_beta)
-            seed_rr, u_rr = rng.rnd(seed_rr)
-            die = rr_on & (u_rr < q)
-            pdf_val = jnp.where(rr_on & ~die, pdf_val * (1.0 - q), pdf_val)
-            walking = walking & ~die
+    def step(depth, c, at_top: bool):
+        """One interface event of the walk; at_top is static."""
+        (seed, seed_rr, walking, w, f_val, pdf_val, specular_path, done,
+         out_color, out_dir, out_pdf, out_specular) = c
+        # Russian roulette from depth 4 on (`GlossyDiffuse.h:432-439`).
+        # pdf products can underflow to denormals; f/denormal = inf and
+        # the masked backward of the ratio then NaNs (0 * -f/pdf^2).
+        # A stand-in of 1.0 keeps the same behavior (rr_beta >= 0.25
+        # means no roulette) with finite partials.
+        on = depth > 3
+        pdf_ok = pdf_val > 1e-20
+        rr_beta = jnp.where(
+            pdf_ok,
+            jnp.max(f_val, axis=-1) / jnp.where(pdf_ok, pdf_val, 1.0),
+            1.0)
+        rr_on = on & walking & (rr_beta < 0.25)
+        q = jnp.maximum(0.0, 1.0 - rr_beta)
+        seed_next, u_rr = rng.rnd(seed_rr)
+        seed_rr = jnp.where(on, seed_next, seed_rr)
+        die = rr_on & (u_rr < q)
+        pdf_val = jnp.where(rr_on & ~die, pdf_val * (1.0 - q), pdf_val)
+        walking = walking & ~die
         walking = walking & (w[..., 2] != 0.0)
 
         # Advance to the other interface (`GlossyDiffuse.h:473-477`).
@@ -291,7 +323,7 @@ def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
                           f_val * transmittance(thickness, w)[..., None],
                           f_val)
 
-        if depth % 2 == 0:
+        if not at_top:
             # bottom: Lambert reflection (never transmits)
             seed, bs = _diffuse.sample(seed, alb_b, -w)
             bs_transmission = jnp.zeros(batch, bool)
@@ -324,6 +356,15 @@ def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
         f_val = jnp.where(walking[..., None],
                           f_val * abs_cos_theta(bs.direction)[..., None],
                           f_val)
+        return (seed, seed_rr, walking, w, f_val, pdf_val, specular_path,
+                done, out_color, out_dir, out_pdf, out_specular)
+
+    carry = (seed, seed_rr, walking, w, f_val, pdf_val, specular_path, done,
+             out_color, out_dir, out_pdf, out_specular)
+    carry = _pair_walk(lambda d, c: step(d, c, False),
+                       lambda d, c: step(d, c, True), carry, max_depth)
+    (seed, _, _, _, _, _, _, done, out_color, out_dir, out_pdf,
+     out_specular) = carry
 
     out_dir_flipped = jnp.where(flip[..., None], -out_dir, out_dir)
     walk_reflection = same_hemisphere(wo_up, out_dir)

@@ -1,6 +1,6 @@
 """Euler-angle fly camera with Blender-pose import and inverse-matrix raygen.
 
-TPU-native equivalent of reference `source/Renderer/Camera.{h,cpp}` and
+JAX equivalent of reference `source/Renderer/Camera.{h,cpp}` and
 `source/GlmHelperMethods.cpp`. Matrices are built host-side in numpy (float64
 then cast) exactly like glm's lookAt/perspective; the device ray generator
 consumes only (position, inverse_view, inverse_projection), mirroring
@@ -15,10 +15,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.math import normalize, vec3
+
+RAYGEN_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def blender_to_engine_position(p):
@@ -131,9 +134,11 @@ def generate_rays(position, inv_view, inv_proj, width, height,
 
     ndc = jnp.stack([x_ndc, y_ndc, jnp.ones_like(x_ndc),
                      jnp.ones_like(x_ndc)], axis=-1)
-    p_view = ndc @ inv_proj.T
+    # HIGHEST: a GPU may run float32 products in TF32 (about 3 decimal
+    # digits), which would move ray directions off the CPU's
+    p_view = jnp.matmul(ndc, inv_proj.T, precision=RAYGEN_PRECISION)
     p_view = p_view.at[..., 3].set(0.0)  # direction, drop w
-    p_world = p_view @ inv_view.T
+    p_world = jnp.matmul(p_view, inv_view.T, precision=RAYGEN_PRECISION)
     d = normalize(p_world[..., :3])
     o = jnp.broadcast_to(position, d.shape)
     return o, d

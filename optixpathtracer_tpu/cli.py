@@ -15,20 +15,20 @@ import dataclasses
 import sys
 
 from .config import RenderConfig
+from .intersect.api import METHODS
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="optixpathtracer_tpu",
-        description="TPU-native differentiable path tracer")
+        description="Differentiable wavefront path tracer in JAX")
     p.add_argument("--config", help="JSON config file (flags override it)")
     p.add_argument("--scene", help="preset name or .gltf/.glb path")
     p.add_argument("--width", type=int)
     p.add_argument("--height", type=int)
     p.add_argument("--spp", type=int)
     p.add_argument("--max-bounces", type=int, dest="max_bounces")
-    p.add_argument("--intersect",
-                   choices=["auto", "brute", "bvh", "pallas", "walk"])
+    p.add_argument("--intersect", choices=list(METHODS))
     p.add_argument("--sharded", action="store_true", default=None,
                    help="shard pixel rows across all local devices")
     p.add_argument("--distributed", action="store_true",
@@ -56,8 +56,22 @@ def build_parser():
     return p
 
 
+def config_from_args(args) -> RenderConfig:
+    """The --config file (or the defaults), overridden by the flags given."""
+    cfg = (RenderConfig.from_json(args.config) if args.config
+           else RenderConfig())
+    for f in dataclasses.fields(RenderConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            setattr(cfg, f.name, v)
+    return cfg
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from .runtime import enable_compile_cache, set_xla_flags
+    set_xla_flags()
+    enable_compile_cache()
 
     if args.list_scenes:
         from .scene.procedural import PRESETS
@@ -65,12 +79,7 @@ def main(argv=None):
             print(name)
         return 0
 
-    cfg = (RenderConfig.from_json(args.config) if args.config
-           else RenderConfig())
-    for f in dataclasses.fields(RenderConfig):
-        v = getattr(args, f.name, None)
-        if v is not None:
-            setattr(cfg, f.name, v)
+    cfg = config_from_args(args)
 
     if args.distributed:
         from .dist import initialize_distributed

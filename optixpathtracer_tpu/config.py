@@ -16,7 +16,7 @@ class RenderConfig:
     height: int = 1080
     spp: int = 1024                 # reference: maxSamples (|-1024|)
     max_bounces: int = 2            # reference main.cpp:87
-    intersect: str = "auto"         # auto | brute | bvh | pallas
+    intersect: str = "auto"         # auto | brute | bvh | bvh_kernel
     tonemap: str = "srgb"           # srgb | agx | none
     reference_compat: bool = False  # reproduce reference bugs (SURVEY quirks)
     out_exr: Optional[str] = None   # linear EXR (reference's output format)

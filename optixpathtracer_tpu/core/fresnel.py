@@ -1,7 +1,7 @@
 """Fresnel terms: exact complex-IOR conductor Fresnel and real dielectric
 Fresnel with TIR, plus refraction.
 
-TPU-native equivalents of reference `PBRT/Complex.h`, `PBRT/Conductor.h:42-92`
+JAX equivalents of reference `PBRT/Complex.h`, `PBRT/Conductor.h:42-92`
 and `PBRT/Dielectric.h:20-92`. Complex arithmetic is expressed on (re, im)
 pairs of jnp arrays - fully vectorized, differentiable, no Python branching.
 """
@@ -14,8 +14,8 @@ from .math import safe_sqrt, sqr, vec3
 
 # ---------------------------------------------------------------------------
 # Minimal complex arithmetic on (re, im) float pairs (reference Complex.h).
-# jnp has native complex64, but TPUs lower complex ops to pairs anyway and
-# keeping explicit pairs makes the vjp rules straightforward.
+# jnp has native complex64; explicit pairs keep the vjp rules
+# straightforward.
 # ---------------------------------------------------------------------------
 
 def _c_mul(ar, ai, br, bi):

@@ -1,6 +1,6 @@
 """Core math helpers: safe elementwise ops and spherical geometry.
 
-TPU-native re-design of the reference's math layer
+Vectorized re-design of the reference's math layer
 (`source/Renderer/OptiX/glmCUDA.h:8-129` safe ops,
 `source/Renderer/OptiX/PBRT/SphericalGeometry.h:8-35` spherical geometry).
 Everything here operates on jnp arrays with a trailing component axis so the

@@ -1,7 +1,7 @@
 """Trowbridge-Reitz (GGX) microfacet distribution: NDF, Smith masking,
 visible-NDF sampling.
 
-TPU-native equivalent of reference `PBRT/Microfacet.h`. Fully vectorized and
+JAX equivalent of reference `PBRT/Microfacet.h`. Fully vectorized and
 mask-based: where the reference early-returns 0 on degenerate inputs
 (`Microfacet.h:13-17`), we compute the same value with `where` selects so the
 whole wavefront stays dense and differentiable.

@@ -11,7 +11,7 @@ same generators as pure uint32 jnp ops so that:
 * the sampling *structure* (which decision consumes which draw) can match the
   reference exactly, which matters for variance parity on the test scenes.
 
-All ops are VPU-friendly integer math; no host RNG anywhere.
+All ops are elementwise integer math; no host RNG anywhere.
 """
 from __future__ import annotations
 

@@ -20,15 +20,15 @@ by the same differentiable-render Adam loop (VERDICT r4 item 2):
   * materials - grouped albedos (spheres / back+floor+ceiling / green /
     blue, through sigmoid), wall roughness.
 
-Use with intersect method='pallas': the dense engine reads tri_v0/e1/e2
-directly and recomputes its cluster AABBs per call, so replayed geometry
-has NO stale acceleration structure (walk/packet read flatten-time packed
-copies and would).
+Use with intersect method='brute': it reads tri_v0/e1/e2 directly, so
+replayed geometry has NO stale acceleration structure (the BVH engines
+walk flatten-time boxes and would).
 """
 from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 GEO_KEYS = ("radius", "spacing", "back_x", "floor_y", "ceil_y",
@@ -129,7 +129,10 @@ class MaterialTestReplay:
         s = self.scene0
         geo0 = jnp.asarray([self.geo0[k] for k in GEO_KEYS], jnp.float32)
         delta = params["geo"] - geo0
-        verts = self.base_verts + jnp.einsum("p,pvk->vk", delta, self.jac)
+        # HIGHEST: TF32 on a GPU would round the vertex offsets
+        verts = self.base_verts + jnp.einsum(
+            "p,pvk->vk", delta, self.jac,
+            precision=jax.lax.Precision.HIGHEST)
         tri = verts[self.tri_idx]                       # [T_real, 3, 3]
         src = self.tri_src
         safe = jnp.maximum(src, 0)

@@ -2,17 +2,19 @@
 
 The reference is strictly single-GPU (device 0 hard-coded,
 `OptixRenderer.cpp:68-71`; SURVEY.md section 2.5). This module is the
-TPU-native scaling design it lacks:
+scaling design it lacks:
 
-* a 1-D `Mesh` over all chips with axis "tiles",
+* a flat 1-D `Mesh` over all devices with axis "tiles" (every card of a
+  host reaches every other over NVLink at one rate, so no device order is
+  better than another),
 * forward: `shard_map` splits the image into contiguous row blocks, one per
-  chip; each chip renders its rows independently (zero communication until
+  device; each renders its rows independently (zero communication until
   the film gather, which is just the sharded output layout),
 * backward: `shard_map` is differentiable - transposing the replicated
-  scene -> sharded image computation automatically inserts the psum over
-  ICI that all-reduces material-parameter gradients across chips,
+  scene -> sharded image computation automatically inserts the psum that
+  all-reduces material-parameter gradients across devices,
 * multi-host: the same code runs under `jax.distributed.initialize`; the
-  mesh then spans hosts and XLA routes the same collectives over DCN.
+  mesh then spans hosts and XLA routes the same collectives between them.
 
 Rendering is embarrassingly parallel over pixels, so scaling efficiency is
 bounded by compile-time constants, the gradient psum, and stragglers - the
@@ -47,15 +49,14 @@ def initialize_distributed(coordinator: str | None = None,
     the comm backend the reference never had, `OptixRenderer.cpp:69-71`).
 
     With no arguments, initializes only when the environment indicates a
-    multi-process launch (JAX_COORDINATOR_ADDRESS, or a TPU pod/GKE/SLURM
-    environment jax can auto-detect); single-process runs are a no-op.
+    multi-process launch (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, or a
+    SLURM job); single-process runs are a no-op.
     Returns True if distributed mode is active.
     """
     import os
     explicit = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     auto_env = any(os.environ.get(k) for k in
-                   ("JAX_NUM_PROCESSES", "SLURM_JOB_NUM_NODES",
-                    "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"))
+                   ("JAX_NUM_PROCESSES", "SLURM_JOB_NUM_NODES"))
     if not (explicit or auto_env or num_processes):
         return False
     jax.distributed.initialize(
@@ -155,8 +156,9 @@ def material_grad_step(mesh: Mesh, scene, cam_params, target,
     transpose - this is the framework's "training step".
 
     intersect_method routes the forward intersection ('auto' picks the
-    Pallas kernels on TPU) - gradients detach through hit ids either way
-    (intersect/api.py), so the fast kernel is safe in the training step.
+    traversal kernel on the GPU for large scenes) - gradients detach
+    through hit ids either way (intersect/api.py), so the kernel is safe in
+    the training step.
 
     Returns (new_scene, loss).
     """

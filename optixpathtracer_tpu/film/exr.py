@@ -1,6 +1,6 @@
 """Minimal OpenEXR 2.0 scanline writer/reader (uncompressed FLOAT).
 
-TPU-native equivalent of the reference's tinyexr-based EXR export
+JAX equivalent of the reference's tinyexr-based EXR export
 (`WriteImage.cpp:35-99`): 3 float channels in B,G,R order, rows flipped so
 the file is top-down, NaN pixels scrubbed to 0 with a console warning
 (reference NaN scrub at `WriteImage.cpp:52-55`). No external EXR dependency -

@@ -1,9 +1,11 @@
 """PNG/BMP output (reference `WriteImage.cpp:8-32` BMP via stb) and the
-display-transform path. PNG goes through PIL; BMP is hand-rolled (24-bit,
-bottom-up - which matches our film convention directly, like stb's y-flip)."""
+display-transform path. Both encoders are hand-rolled on the standard
+library: PNG is 8-bit RGB with one zlib stream, BMP is 24-bit bottom-up -
+which matches our film convention directly, like stb's y-flip)."""
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
@@ -24,11 +26,27 @@ def to_display(image, tonemap: str = "srgb"):
     return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
+def encode_png(rgb) -> bytes:
+    """[H, W, 3] uint8, row 0 = top -> PNG file bytes (filter type 0)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rgb.reshape(h, 3 * w)], axis=1).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
 def write_png(path: str, image, tonemap: str = "srgb") -> None:
     """Write the film to PNG (flipped to top-down for display)."""
-    from PIL import Image
-    arr = to_display(image, tonemap)[::-1]
-    Image.fromarray(arr).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(to_display(image, tonemap)[::-1]))
 
 
 def write_bmp(path: str, image, tonemap: str = "srgb") -> None:

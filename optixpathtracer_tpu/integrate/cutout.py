@@ -6,10 +6,14 @@ radiance and shadow rays).
 OptiX re-enters traversal on optixIgnoreIntersection; the wavefront analog
 is a bounded re-trace: find the closest hit, evaluate the albedo alpha at
 the hit point, and for cut-out lanes re-trace with tmin just past the hit.
-MAX_CUTOUT_LAYERS bounds the unrolled passes (transparent layers beyond
-that occlude). Only compiled in when the scene actually contains cutout
-texels (scene_uses_alpha_cutout - a static flatten-time fact), so opaque
-scenes pay nothing.
+Each chain is one lax.while_loop that stops when no lane is still open or
+after MAX_CUTOUT_LAYERS passes (transparent layers beyond that occlude), so
+the compiled program holds one traversal call per chain, not one per
+layer. The loops carry only detached values (hit ids decide, they do not
+differentiate); the answer is refined differentiably after the loop. Only
+compiled in when the scene actually contains cutout texels
+(scene_uses_alpha_cutout - a static flatten-time fact), so opaque scenes
+pay nothing.
 """
 from __future__ import annotations
 
@@ -71,8 +75,8 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
     differentiably against the outer geometry - so no full-scene re-trace
     ever runs (was ~180 ms/frame on the hall preset even gated).
 
-    Legacy path (no split): layers are lax.cond-gated and re-trace with
-    non-cut lanes dead (tmax = -1) as of round 4.
+    Legacy path (no split): re-traces with non-cut lanes dead
+    (tmax = -1).
     """
     r = o.shape[0]
     tmin = jnp.broadcast_to(jnp.asarray(tmin, jnp.float32), (r,))
@@ -81,19 +85,16 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
     if scene.opaque_scene is not None and scene.cutout_sub is not None:
         opq = scene.opaque_scene
         sub = scene.cutout_sub
-        h_o = intersect_closest(opq, o, d, tmin, tmax, method=method)
+        h_o = _detached(intersect_closest(opq, o, d, tmin, tmax,
+                                          method=method))
         # cutout chain over the subset, bounded by the opaque hit
         sub_bound = jnp.where(h_o.hit, h_o.t + REENTRY_EPS, tmax_b)
-        cur_tmin = tmin
-        open_ = jnp.ones((r,), bool)
-        best_t = jnp.full((r,), jnp.inf, jnp.float32)
-        best_id = jnp.full((r,), -1, jnp.int32)
 
-        def step(state, gate):
-            best_t, best_id, open_, cur_tmin = state
-            lane_tmax = jnp.where(gate, sub_bound, -1.0)
-            h = intersect_closest(sub, o, d, cur_tmin, lane_tmax,
-                                  method=method)
+        def step(state):
+            best_t, best_id, open_, cur_tmin, last_t, last_id = state
+            lane_tmax = jnp.where(open_, sub_bound, -1.0)
+            h = _detached(intersect_closest(sub, o, d, cur_tmin, lane_tmax,
+                                            method=method))
             solid = h.hit & (_hit_alpha(sub, h) >= ALPHA_THRESHOLD)
             take = open_ & solid
             best_t = jnp.where(take, h.t, best_t)
@@ -102,24 +103,16 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
             cur_tmin = jnp.where(open_, h.t + REENTRY_EPS, cur_tmin)
             # layers beyond the bound conservatively occlude: remember the
             # deepest cut hit so exhausting the chain still reports a hit
-            return best_t, best_id, open_, cur_tmin, h
+            last_t = jnp.where(open_ & h.hit, h.t, last_t)
+            last_id = jnp.where(open_ & h.hit, h.tri_id, last_id)
+            return best_t, best_id, open_, cur_tmin, last_t, last_id
 
-        state = (best_t, best_id, open_, cur_tmin)
-        last_cut_t = jnp.full((r,), jnp.inf, jnp.float32)
-        last_cut_id = jnp.full((r,), -1, jnp.int32)
-        for layer in range(MAX_CUTOUT_LAYERS + 1):
-            def run(s, layer=layer):
-                bt, bi, op, ct, h = step(s[:4], s[2])
-                lt = jnp.where(op & h.hit, h.t, s[4])
-                li = jnp.where(op & h.hit, h.tri_id, s[5])
-                return bt, bi, op, ct, lt, li
-
-            full_state = state + (last_cut_t, last_cut_id)
-            full_state = jax.lax.cond(jnp.any(full_state[2]), run,
-                                      lambda s: s, full_state)
-            state = full_state[:4]
-            last_cut_t, last_cut_id = full_state[4], full_state[5]
-        best_t, best_id, open_, _ = state
+        no_hit = (jnp.full((r,), jnp.inf, jnp.float32),
+                  jnp.full((r,), -1, jnp.int32))
+        state = _chain(step, no_hit + (jnp.ones((r,), bool),
+                                       jax.lax.stop_gradient(tmin))
+                       + no_hit, open_index=2)
+        best_t, best_id, open_, _, last_cut_t, last_cut_id = state
         # exhausted chains occlude at the deepest cut surface
         best_t = jnp.where(open_ & (last_cut_id >= 0), last_cut_t, best_t)
         best_id = jnp.where(open_ & (last_cut_id >= 0), last_cut_id,
@@ -146,19 +139,43 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
         # like api.intersect_closest's contract
         return _refine(scene, o, d, raw, tmax_b)
 
-    best = intersect_closest(scene, o, d, tmin, tmax, method=method)
-    for _ in range(MAX_CUTOUT_LAYERS):
-        cut = best.hit & (_hit_alpha(scene, best) < ALPHA_THRESHOLD)
+    tmin = jax.lax.stop_gradient(tmin)
 
-        def retrace(best, cut=cut):
-            new_tmin = jnp.where(cut, best.t + REENTRY_EPS, tmin)
-            lane_tmax = jnp.where(cut, tmax_b, -1.0)
-            again = intersect_closest(scene, o, d, new_tmin, lane_tmax,
-                                      method=method)
-            return Hit(*[jnp.where(cut, a, b) for a, b in zip(again, best)])
+    def cut_of(best):
+        return best.hit & (_hit_alpha(scene, best) < ALPHA_THRESHOLD)
 
-        best = jax.lax.cond(jnp.any(cut), retrace, lambda b: b, best)
-    return best
+    def retrace(state):
+        best, cut = state
+        new_tmin = jnp.where(cut, best.t + REENTRY_EPS, tmin)
+        lane_tmax = jnp.where(cut, tmax_b, -1.0)
+        again = _detached(intersect_closest(scene, o, d, new_tmin, lane_tmax,
+                                            method=method))
+        best = Hit(*[jnp.where(cut, a, b) for a, b in zip(again, best)])
+        return best, cut_of(best)
+
+    best = _detached(intersect_closest(scene, o, d, tmin, tmax,
+                                       method=method))
+    best, _ = _chain(retrace, (best, cut_of(best)), open_index=1,
+                     n_layers=MAX_CUTOUT_LAYERS)
+    # the same (t, u, v) the last engine call refined, now differentiable
+    return _refine(scene, o, d, best, tmax_b)
+
+
+def _detached(hit: Hit) -> Hit:
+    return jax.tree.map(jax.lax.stop_gradient, hit)
+
+
+def _chain(step, state, open_index: int,
+           n_layers: int = MAX_CUTOUT_LAYERS + 1):
+    """Apply `step` while any lane of state[open_index] is open, at most
+    n_layers times (a while_loop: one traversal call site per chain)."""
+    def cond(c):
+        return (c[0] < n_layers) & jnp.any(c[1][open_index])
+
+    def body(c):
+        return c[0] + 1, step(c[1])
+
+    return jax.lax.while_loop(cond, body, (jnp.int32(0), state))[1]
 
 
 def _any_cutout_chain(scene, o, d, tmin, tmax_b, gate0, method):
@@ -166,15 +183,13 @@ def _any_cutout_chain(scene, o, d, tmin, tmax_b, gate0, method):
     a hit whose alpha passes the threshold; cutout hits re-enter. gate0
     masks lanes that need the query at all."""
     r = o.shape[0]
-    cur_tmin = tmin
-    blocked = jnp.zeros((r,), bool)
-    open_ = gate0
+    tmax_b = jax.lax.stop_gradient(tmax_b)
 
-    def step(state, lane_gate):
+    def step(state):
         blocked, open_, cur_tmin = state
-        lane_tmax = jnp.where(lane_gate, tmax_b, -1.0)
-        hit = intersect_closest(scene, o, d, cur_tmin, lane_tmax,
-                                method=method)
+        lane_tmax = jnp.where(open_, tmax_b, -1.0)
+        hit = _detached(intersect_closest(scene, o, d, cur_tmin, lane_tmax,
+                                          method=method))
         opaque = hit.hit & (_hit_alpha(scene, hit) >= ALPHA_THRESHOLD)
         blocked = blocked | (open_ & opaque)
         # keep searching only through cutout hits
@@ -182,13 +197,9 @@ def _any_cutout_chain(scene, o, d, tmin, tmax_b, gate0, method):
         cur_tmin = jnp.where(open_, hit.t + REENTRY_EPS, cur_tmin)
         return blocked, open_, cur_tmin
 
-    state = jax.lax.cond(jnp.any(gate0),
-                         lambda s: step(s, s[1]), lambda s: s,
-                         (blocked, open_, cur_tmin))
-    for _ in range(MAX_CUTOUT_LAYERS):
-        state = jax.lax.cond(jnp.any(state[1]),
-                             lambda s: step(s, s[1]), lambda s: s, state)
-    blocked, open_, _ = state
+    blocked, open_, _ = _chain(
+        step, (jnp.zeros((r,), bool), gate0, jax.lax.stop_gradient(tmin)),
+        open_index=1)
     # layers beyond the bound conservatively occlude
     return blocked | open_
 

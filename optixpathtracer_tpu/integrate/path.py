@@ -1,6 +1,6 @@
 """Wavefront path integrator with next-event estimation.
 
-TPU-native inversion of the reference's one-thread-per-path megakernel
+Wavefront inversion of the reference's one-thread-per-path megakernel
 (`devicePrograms.cu:625-664` SamplePath + `__closesthit__radiance`): rays,
 throughput, and radiance live as SoA arrays over the whole wavefront; each
 bounce is one batched pass (intersect -> shade -> NEE -> BSDF sample), with
@@ -51,12 +51,11 @@ def _spread3(x):
 
 def _coherence_sort_key(scene, o, d, alive):
     """Sort key grouping rays by direction octant within origin Morton
-    cells. Secondary bounces scatter rays incoherently; the Pallas
-    intersection kernels cull triangle clusters per 4096-ray block, so
-    re-sorting the wavefront each bounce keeps blocks spatially tight and
-    restores the culling rate (the TPU analog of the ray-sorting stage in
-    wavefront GPU path tracers). Dead lanes sort to the end where their
-    blocks are culled en masse."""
+    cells. Secondary bounces scatter rays incoherently; re-sorting the
+    wavefront each bounce puts rays that walk the same BVH nodes into the
+    same traversal-kernel block (the ray-sorting stage of wavefront GPU
+    path tracers). Dead lanes sort to the end, where whole blocks exit at
+    once."""
     root_min, root_max = _scene_bounds(scene)
     root_ext = jnp.maximum(root_max - root_min, 1e-6)
     scale = float(1 << MORTON_BITS)
@@ -91,8 +90,7 @@ def _scene_bounds(scene):
 
 def _perm_from_key(key, n_buckets: int):
     """Stable counting-sort permutation from integer bucket keys: one
-    [R, K] one-hot cumsum instead of an O(R log R) comparison sort (a few
-    hundred microseconds of VPU-friendly scans per 65k-ray wavefront)."""
+    [R, K] one-hot cumsum instead of an O(R log R) comparison sort."""
     onehot = (key[:, None] == jnp.arange(n_buckets)[None, :]).astype(
         jnp.int32)
     inc = jnp.cumsum(onehot, axis=0)           # [R, K] inclusive ranks
@@ -108,9 +106,8 @@ def _perm_from_key(key, n_buckets: int):
 
 def _bucket_permutation(scene, o, d, alive):
     """Counting-sort permutation over N_BUCKETS coherence buckets (origin
-    2x2x2 cell x direction octant; dead lanes last). Buckets keep each
-    [RAY_SUB, 128] Pallas block's rays spatially tight so its cluster/BVH
-    culling fires (the TPU analog of GPU wavefront ray binning)."""
+    2x2x2 cell x direction octant; dead lanes last): wavefront ray binning,
+    so each traversal-kernel block holds spatially tight rays."""
     root_min, root_max = _scene_bounds(scene)
     mid = 0.5 * (root_min + root_max)
     cell = ((o[:, 0] >= mid[0]).astype(jnp.int32)
@@ -356,12 +353,10 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
     sort_rays (static): re-sort the wavefront by spatial coherence each
     secondary bounce. True (the cheap path) uses the counting-sort bucket
     permutation (_bucket_permutation: origin cell x direction octant via
-    one-hot cumsum - no comparison sort); "morton" uses the original full
-    Morton argsort (~7 ms per 65k rays on v5e, kept for comparison). Per-lane
-    arithmetic is order-invariant, so images are bit-identical either way.
-    Default OFF: on v5e the bucket permutation costs ~1 ms per bounce while
-    block-level culling on the bench scenes gains less; flip on for large
-    scenes with incoherent bounce wavefronts.
+    one-hot cumsum - no comparison sort); "morton" uses the full Morton
+    argsort. Per-lane arithmetic is order-invariant, so images are
+    bit-identical either way. Default OFF; what it buys the GPU traversal
+    kernel on bounce wavefronts is not measured.
     compact_shading (static): split every secondary bounce's SHADING stage
     into this many contiguous segments, each under lax.cond on 'any lane
     alive'. With sort_rays on, dead lanes sort last (COMPACTION.md:
@@ -395,20 +390,14 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
             beta, radiance = beta[perm], radiance[perm]
             alive, pix = alive[perm], pix[perm]
         # Dead lanes trace with tmax=-1: they can't hit anything, and the
-        # Pallas cluster tests cull their whole blocks for free.
+        # traversal engines retire them before the first node.
         ray_tmax = jnp.where(alive, RAY_TMAX, -1.0) if _bounce else RAY_TMAX
-        # Secondary bounces carry the "auto:bounce" routing hint: incoherent
-        # wavefronts route to the per-packet engine on big scenes
-        # (intersect/api.py _resolve).
-        closest_method = ("auto:bounce" if _bounce
-                          and intersect_method == "auto"
-                          else intersect_method)
         if use_alpha_cutout:
             hit = intersect_closest_cutout(scene, o, d, 0.0, ray_tmax,
-                                           method=closest_method)
+                                           method=intersect_method)
         else:
             hit = intersect_closest(scene, o, d, 0.0, ray_tmax,
-                                    method=closest_method)
+                                    method=intersect_method)
         # miss -> background is black; path dies with radiance unchanged
         alive = alive & hit.hit
 
@@ -428,11 +417,8 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
                 m=surf.mat.metallic[debug_pixel],
                 a=alive[debug_pixel])
 
-        # The NEE shadow query inherits the bounce hint too: scattered
-        # shadow origins route to the packet engine on big scenes
-        # (measured hall bounce-1 shadow: walk 74.4 ms vs packet 65.4).
         shade_args = (reference_compat, use_textures, flat_shading,
-                      closest_method, active_lobes, use_alpha_cutout)
+                      intersect_method, active_lobes, use_alpha_cutout)
         if material_sort and debug_pixel is None \
                 and r % material_sort == 0:
             (seed, radiance, beta, o, d, alive,

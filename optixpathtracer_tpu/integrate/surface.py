@@ -1,6 +1,6 @@
 """Hit -> shading context: normals, frames, textures, material resolution.
 
-TPU-native equivalent of the reference closest-hit preamble
+JAX equivalent of the reference closest-hit preamble
 (`devicePrograms.cu:343-424`): barycentric attribute interpolation,
 face-forwarded geometric/shading normals with the backface outward flip,
 texture modulation (albedo sRGB decode, metal/rough channels, normal map),
@@ -45,8 +45,7 @@ def make_surface(seed, scene, o, d, hit, reference_compat: bool = False,
     use_textures=False (static) skips every texture gather - flatten-time
     analysis (scene_uses_textures) sets it so untextured scenes never pay
     the bilinear fetch (4 dynamic gathers x 3 maps per lane). It also skips
-    the per-corner UV gather (6 floats/lane) - shading gathers are the
-    dominant non-intersection cost on TPU.
+    the per-corner UV gather (6 floats/lane).
 
     flat_shading=True (static, from scene_flat_shading) marks scenes whose
     vertex normals all equal the geometric normal: the 9-float/lane corner

@@ -3,11 +3,12 @@
 Design (SURVEY.md section 7 stage 6): the *discrete* part of intersection
 (which triangle, did it hit) is inherently non-differentiable and runs
 detached - whether it came from the brute-force oracle, the JAX BVH walk, or
-the Pallas kernel. The *continuous* part (t, barycentrics) is then recomputed
-in a few differentiable FLOPs from the detached tri_id, so gradients flow
-from pixels to ray origins/directions and to the triangle vertices without
-any custom_vjp on the traversal kernels. Hit parameters are piecewise-smooth
-in geometry; material gradients (the BASELINE.md target) are exact.
+the GPU traversal kernel. The *continuous* part (t, barycentrics) is then
+recomputed in a few differentiable FLOPs from the detached tri_id, so
+gradients flow from pixels to ray origins/directions and to the triangle
+vertices without any custom_vjp on the traversal engines. Hit parameters are
+piecewise-smooth in geometry; material gradients (the BASELINE.md target)
+are exact.
 """
 from __future__ import annotations
 
@@ -15,79 +16,33 @@ import jax
 import jax.numpy as jnp
 
 from ..core.math import cross, dot
-from . import brute, bvh_traverse
+from . import brute, bvh_kernel, bvh_traverse
 from .types import Hit
 
-# Scenes below this triangle count use a dense all-pairs kernel (cheaper
-# than divergent traversal); above it, the BVH.
+# Scenes up to this triangle count use the dense all-pairs sweep (at most 4
+# chunks of 512, which XLA fuses with their min-reduction); above it, BVH
+# traversal.
 BRUTE_FORCE_MAX_TRIS = 2048
 
-
-# Below this chunk count the dense sweep's linear cull is cheaper than
-# skip-link traversal overhead (small scenes fit a handful of chunks).
-WALK_MIN_CHUNKS = 8
-
-
-PACKET_BOUNCE_MIN_CHUNKS = 512  # scenes with fewer walk chunks keep the
-                                # walk sweep even for bounce wavefronts
-                                # (per-packet overheads beat the union
-                                # savings on small candidate sets)
+_ENGINES = {"brute": brute, "bvh": bvh_traverse, "bvh_kernel": bvh_kernel}
+METHODS = ("auto", *_ENGINES)
 
 
 def _resolve(method: str, scene) -> str:
-    # "auto:bounce" = auto routing with the hint that this wavefront is a
-    # secondary-bounce one (incoherent directions). Measured on hall
-    # (338k tris, benchmarks/hall_engines.py r5): per-1024-ray-block
-    # candidate unions are ~49x the per-ray need on bounce wavefronts, so
-    # the per-8-ray-packet engine wins 3.2x there (162->51 ms closest),
-    # while primaries stay with the whole-block walk sweep (33 vs 36 ms).
-    bounce = method == "auto:bounce"
-    if bounce:
-        method = "auto"
+    """'auto' -> brute for small scenes; above that the traversal kernel on
+    the GPU and the vmapped while-loop walk elsewhere."""
+    if method not in METHODS:
+        raise ValueError(f"unknown intersect method {method!r} "
+                         f"(one of {METHODS})")
     if method != "auto":
         return method
-    n = scene.tri_v0.shape[0]
-    if jax.default_backend() == "tpu":
-        # Measured crossover table on v5e (65k-ray wavefronts, Mrays/s;
-        # WALK_BENCH.json r3/r4 dense_baseline + rounds + r4_packet):
-        #
-        #   tris   | dense | walk | rs32 | packet |   regime
-        #   10k    | 6.7   |  -   |  -   |   -    | dense wins (few chunks)
-        #   100k   | 2.4   | 2.4  |  -   | 1.4    | walk == dense, keep walk
-        #   1M pri | 0.45  | 0.59 |0.59  | 0.71   | packet best, walk close
-        #   1M rnd | 1.2   | 1.24 |6.63  | 1.0    | rs32 walk best incoherent
-        #
-        # ('rs32' = the walk kernel with OPT_WALK_RAY_SUB=32, i.e.
-        # 4096-ray blocks: incoherent blocks see near-whole-scene
-        # candidate unions at ANY block size, so the bigger block wins
-        # back traversal/dispatch amortization - WALK_BENCH.json
-        # r3_walk_rs32_variant.)
-        #
-        # The dense sweep also beats the vmapped while-loop BVH by ~45x
-        # at 20k tris (gather-heavy divergent traversal is pathological
-        # on TPU). Routing: small scenes dense; everything else walk.
-        # 'packet' stays available for coherent primary-heavy workloads
-        # at >=1M tris.
-        if (scene.walk_tris.shape[0] >= WALK_MIN_CHUNKS):
-            if bounce and scene.walk_tris.shape[0] >= \
-                    PACKET_BOUNCE_MIN_CHUNKS:
-                return "packet"
-            return "walk"
-        return "pallas"
-    return "brute" if n <= BRUTE_FORCE_MAX_TRIS else "bvh"
+    if scene.tri_v0.shape[0] <= BRUTE_FORCE_MAX_TRIS:
+        return "brute"
+    return "bvh_kernel" if jax.default_backend() == "gpu" else "bvh"
 
 
 def _engine(method: str):
-    if method == "pallas":
-        from . import pallas_kernels
-        return pallas_kernels
-    if method == "walk":
-        from . import walk_kernels
-        return walk_kernels
-    if method == "packet":
-        from . import packet_kernels
-        return packet_kernels
-    return brute if method == "brute" else bvh_traverse
+    return _ENGINES[method]
 
 
 def _refine(scene, o, d, hit: Hit, tmax):
@@ -118,18 +73,15 @@ def _refine(scene, o, d, hit: Hit, tmax):
 
 
 def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
-    """Closest-hit query with differentiable refinement. method in
-    {'auto', 'auto:bounce', 'brute', 'bvh', 'pallas', 'walk', 'packet'}
-    ('auto' routes per backend and scene size; 'auto:bounce' additionally
-    hints an incoherent secondary-bounce wavefront, routing big scenes to
-    the per-8-ray-packet engine - see _resolve)."""
+    """Closest-hit query with differentiable refinement. method is one of
+    METHODS ('auto' routes per backend and scene size - see _resolve)."""
     engine = _engine(_resolve(method, scene))
     o_det = jax.lax.stop_gradient(o)
     d_det = jax.lax.stop_gradient(d)
     scene_det = jax.lax.stop_gradient(scene)
     # tmin/tmax must be detached too: callers pass values derived from hit
     # positions (which carry material-parameter tangents from bounce 1 on),
-    # and a nonzero tangent entering a Pallas engine aborts its JVP trace.
+    # and pallas_call has no JVP rule for a nonzero tangent.
     tmin = jax.lax.stop_gradient(tmin)
     tmax = jax.lax.stop_gradient(tmax)
     raw = engine.intersect_closest(scene_det, o_det, d_det, tmin, tmax)
@@ -145,7 +97,8 @@ def intersect_any(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     detached-sampling differentiable renderers). method as in
     intersect_closest. Every input is detached, including tmin/tmax: the
     NEE shadow_tmax is derived from surf.position and would otherwise leak
-    material tangents into the Pallas kernels (TPU JVP abort)."""
+    material tangents into the traversal kernel (pallas_call has no JVP
+    rule)."""
     engine = _engine(_resolve(method, scene))
     o = jax.lax.stop_gradient(o)
     d = jax.lax.stop_gradient(d)

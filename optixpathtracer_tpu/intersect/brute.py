@@ -1,10 +1,10 @@
 """Brute-force Moller-Trumbore intersection: the correctness oracle.
 
-O(rays x tris), but expressed as a dense chunked scan that is actually
-TPU-friendly for small scenes: each chunk is a [R, C] elementwise slab of
-VPU work with zero gathers and a running min-reduction (SURVEY.md section 7
-stage 3: "brute-force ships first as the correctness oracle; the BVH kernel
-must match it on hit ids").
+O(rays x tris), but expressed as a dense chunked scan that is cheap for
+small scenes: each chunk is a [R, C] elementwise slab with zero gathers and
+a running min-reduction, which XLA fuses into one pass per chunk (SURVEY.md
+section 7 stage 3: "brute-force ships first as the correctness oracle; the
+BVH kernel must match it on hit ids").
 
 Back-face orientation follows OptiX convention: a hit is front-facing when
 the ray direction opposes the geometric normal cross(e1, e2).

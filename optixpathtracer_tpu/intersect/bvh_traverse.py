@@ -7,8 +7,9 @@ inner node -> descend to node+1 (left child); miss, or after a leaf ->
 jump to node_skip. No stack, so the whole wavefront's state is just one
 int32 node pointer per ray plus the running best hit.
 
-This is the portable engine; intersect/pallas_kernels.py carries the
-TPU-tiled version of the same algorithm.
+This is the portable engine (the CPU route for large scenes);
+intersect/bvh_kernel.py runs the same algorithm as a GPU kernel with
+per-warp instead of per-wavefront lockstep.
 """
 from __future__ import annotations
 

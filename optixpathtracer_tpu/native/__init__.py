@@ -1,21 +1,32 @@
 """ctypes bindings for the native (C++) host-runtime components.
 
-The native BVH builder is compiled on first use (g++ is in the image); if
-compilation fails, callers fall back to the pure-numpy builder in
-scene/bvh.py - same output layout, just slower on big scenes.
+The native BVH builder is compiled from bvh_builder.cpp on first use, into
+build/ beside this file (not tracked by git), under a name keyed by the
+source's hash, so a library built from other sources is never loaded. It is
+built for the generic x86-64 target: the build directory may travel to
+another host. If compilation fails, callers fall back to the pure-numpy
+builder in scene/bvh.py - same output layout, just slower on big scenes.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_DIR, "libbvh_builder.so")
+_SRC = os.path.join(_DIR, "bvh_builder.cpp")
 _lib = None
 _load_failed = False
+
+
+def lib_path() -> str:
+    """Where the builder library for the current source lives."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, "build", f"libbvh_builder-{digest}.so")
 
 
 def _ensure_lib():
@@ -23,14 +34,15 @@ def _ensure_lib():
     if _lib is not None or _load_failed:
         return _lib
     try:
-        src = os.path.join(_DIR, "bvh_builder.cpp")
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
+        path = lib_path()
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-fPIC", "-shared",
-                 "-std=c++17", "-o", _LIB_PATH, src],
-                check=True, capture_output=True, cwd=_DIR)
-        lib = ctypes.CDLL(_LIB_PATH)
+                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", tmp,
+                 _SRC], check=True, capture_output=True, cwd=_DIR)
+            os.replace(tmp, path)  # atomic: parallel test workers race here
+        lib = ctypes.CDLL(path)
         lib.bvh_build.restype = ctypes.c_int64
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float),   # v0

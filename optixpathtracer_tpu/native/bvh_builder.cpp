@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder with skip-link flattening.
 //
-// The C++ host-runtime component of the framework: the TPU-native
+// The C++ host-runtime component of the framework: the
 // counterpart of the reference's GAS build path (`OptixRenderer.cpp:306-456`
 // optixAccelBuild), which on NVIDIA hardware is a driver-provided native
 // builder. Large scenes (Sponza-class, 10^5-10^6 triangles) make the

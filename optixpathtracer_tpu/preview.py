@@ -1,6 +1,6 @@
 """Interactive progressive preview: browser viewport + fly camera.
 
-TPU-native replacement for the reference's OpenGL window + GLFW input layer
+JAX replacement for the reference's OpenGL window + GLFW input layer
 (`source/Renderer/{OpenGLWindow,OptixView}.cpp`, SURVEY.md L6/L7): instead
 of a GL swapchain, a small stdlib HTTP server streams the sRGB-encoded
 accumulation buffer as PNG to a browser page, and the page posts key/drag
@@ -19,7 +19,6 @@ Run: python -m optixpathtracer_tpu.cli --scene scene3_cornell --preview 8000
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -73,14 +72,12 @@ refresh();
 
 def _encode_png(linear_img):
     """Linear [H,W,3] (film row 0 = bottom) -> sRGB PNG bytes."""
-    from PIL import Image
+    from .film.image_io import encode_png
     img = np.asarray(linear_img)
     srgb = np.where(img <= 0.0031308, img * 12.92,
                     1.055 * np.clip(img, 0.0, None) ** (1 / 2.4) - 0.055)
     u8 = (np.clip(srgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(u8[::-1]).save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(u8[::-1])
 
 
 class PreviewState:

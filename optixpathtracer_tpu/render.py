@@ -16,7 +16,7 @@ import numpy as np
 from .camera import Camera
 from .config import RenderConfig
 from .film import write_bmp, write_exr, write_png
-from .integrate.path import render_sample
+from .integrate.path import render_chunk
 from .scene import flatten_model
 from .scene.flatten import (scene_active_lobes, scene_flat_shading,
     scene_uses_textures)
@@ -55,9 +55,10 @@ def load_checkpoint(path):
     return jnp.asarray(data["accum"]), int(data["next_frame"])
 
 
-def render_config(cfg: RenderConfig, scene=None, camera=None):
+def render_config(cfg: RenderConfig, scene=None, camera=None, mesh=None):
     """Run a full progressive render per the config. Returns the final
-    linear [H, W, 3] numpy image."""
+    linear [H, W, 3] numpy image. A sharded render uses `mesh`, or one
+    over every device when it is None."""
     if scene is None or camera is None:
         scene, camera = load_scene(cfg)
 
@@ -76,61 +77,61 @@ def render_config(cfg: RenderConfig, scene=None, camera=None):
 
     frame_fn = None
     if cfg.sharded:
-        # Production multi-device path: pixel rows sharded over every local
-        # chip (and every host under jax.distributed) - the scaling axis the
-        # reference's single-GPU design never had (`OptixRenderer.cpp:69-71`).
+        # Production multi-device path: pixel rows sharded over every
+        # device there is (and every host under jax.distributed; one device
+        # is a valid mesh) - the scaling axis the reference's single-GPU
+        # design never had (`OptixRenderer.cpp:69-71`).
         import jax
+        from jax.sharding import NamedSharding, PartitionSpec as P
         from .dist import make_mesh, render_sample_sharded
-        mesh = make_mesh()
+        if mesh is None:
+            mesh = make_mesh()
         n = mesh.devices.size
-        if n > 1 and cfg.height % n == 0:
-            from jax.sharding import NamedSharding, PartitionSpec as P
+        if cfg.height % n:
+            raise ValueError(f"sharded render: height {cfg.height} is not "
+                             f"divisible by {n} devices")
 
-            @jax.jit
-            def frame_fn(scene, s):
-                return render_sample_sharded(
-                    mesh, scene, pos, inv_view, inv_proj,
-                    cfg.width, cfg.height, s, cfg.max_bounces,
-                    cfg.intersect, lobes, cfg.reference_compat,
-                    use_tex, use_cutout, flat)
+        @jax.jit
+        def frame_fn(scene, s):
+            return render_sample_sharded(
+                mesh, scene, pos, inv_view, inv_proj,
+                cfg.width, cfg.height, s, cfg.max_bounces,
+                cfg.intersect, lobes, cfg.reference_compat,
+                use_tex, use_cutout, flat)
 
-            # keep the accumulator sharded like the frames: the running-mean
-            # update then runs with zero cross-device traffic
-            accum = jax.device_put(
-                accum, NamedSharding(mesh, P(mesh.axis_names[0])))
-        else:
-            print(f"sharded: falling back to single-device "
-                  f"({n} devices, height {cfg.height})")
+        # keep the accumulator sharded like the frames: the running-mean
+        # update then runs with zero cross-device traffic
+        accum = jax.device_put(
+            accum, NamedSharding(mesh, P(mesh.axis_names[0])))
 
     # The spp loop runs ON-DEVICE in chunks of frames_per_launch
     # (lax.fori_loop over 1-spp frames with the running-mean update fused
     # in), so a 1024-spp production render pays ~spp/chunk host dispatches
-    # instead of ~spp - the shipped path now matches the benched path
-    # (bench.py's fori_loop shape). Chunks stop at checkpoint boundaries so
-    # resume semantics are unchanged; per-frame arithmetic is identical
-    # (same frame seeds, same mean recurrence), so images are bit-identical
-    # to the per-sample loop.
-    import jax
+    # instead of ~spp. Chunks stop at checkpoint boundaries so resume
+    # semantics are unchanged; per-frame arithmetic is identical (same frame
+    # seeds, same mean recurrence), so images are bit-identical to the
+    # per-sample loop. An unsharded render runs integrate.path.render_chunk
+    # itself, so a program compiled ahead of time with the same arguments
+    # (chip_smoke.py does) is the one this loop runs.
+    if frame_fn is not None:
+        import jax
+        from functools import partial
 
-    def _frame(scene, s):
+        @partial(jax.jit, static_argnames=("chunk",))
+        def sharded_chunk(scene, accum, s0, chunk: int):
+            def body(i, acc):
+                s = (s0 + i).astype(jnp.uint32)
+                frame = frame_fn(scene, s)
+                return acc + (frame - acc) / (s.astype(jnp.float32) + 1.0)
+            return jax.lax.fori_loop(0, chunk, body, accum)
+
+    def launch(accum, s0, chunk):
         if frame_fn is not None:
-            return frame_fn(scene, s)
-        return render_sample(scene, pos, inv_view, inv_proj,
-                             cfg.width, cfg.height, s,
-                             cfg.max_bounces, cfg.intersect,
-                             cfg.reference_compat, lobes, use_tex,
-                             use_alpha_cutout=use_cutout,
-                             flat_shading=flat)
-
-    from functools import partial
-
-    @partial(jax.jit, static_argnames=("chunk",))
-    def render_chunk(scene, accum, s0, chunk: int):
-        def body(i, acc):
-            s = (s0 + i).astype(jnp.uint32)
-            frame = _frame(scene, s)
-            return acc + (frame - acc) / (s.astype(jnp.float32) + 1.0)
-        return jax.lax.fori_loop(0, chunk, body, accum)
+            return sharded_chunk(scene, accum, s0, chunk)
+        return render_chunk(scene, pos, inv_view, inv_proj, cfg.width,
+                            cfg.height, accum, s0, chunk, cfg.max_bounces,
+                            cfg.intersect, cfg.reference_compat, lobes,
+                            use_tex, use_cutout, flat_shading=flat)
 
     per_launch = max(1, cfg.frames_per_launch)
     t0 = time.time()
@@ -140,7 +141,7 @@ def render_config(cfg: RenderConfig, scene=None, camera=None):
         if cfg.checkpoint:  # stop at the next checkpoint boundary
             to_ckpt = cfg.checkpoint_every - s % cfg.checkpoint_every
             chunk = min(chunk, to_ckpt)
-        accum = render_chunk(scene, accum, jnp.uint32(s), chunk)
+        accum = launch(accum, jnp.uint32(s), chunk)
         s += chunk
         if cfg.log_every and (s % cfg.log_every < chunk or s == cfg.spp):
             # reference heartbeat "at Sample: N" (`OptixView.cpp:159-161`)

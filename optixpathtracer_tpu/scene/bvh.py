@@ -1,9 +1,9 @@
 """BVH build: binned-SAH BVH2 flattened to a skip-link layout for stackless
-TPU traversal.
+traversal.
 
 This replaces the reference's hardware GAS build (`OptixRenderer.cpp:306-456`
 `optixAccelBuild` + RT-core traversal) - the one component the reference got
-from hardware that the TPU framework must own (SURVEY.md section 7 stage 2/3).
+from hardware that this framework must own (SURVEY.md section 7 stage 2/3).
 
 Build is host-side numpy (a native C++ builder is the planned upgrade for
 large scenes); the output is four flat arrays in depth-first order:
@@ -152,117 +152,6 @@ def _flatten(node, arrays, i, skip_target, sizes):
     arrays["count"][i] = 0
     _flatten(node.left, arrays, i + 1, right_idx, sizes)
     return _flatten(node.right, arrays, right_idx, skip_target, sizes)
-
-
-class ChunkBVH(NamedTuple):
-    """Skip-link BVH over fixed-size triangle *chunks* - the SMEM-resident
-    top level of the hierarchical Pallas intersection kernel
-    (intersect/walk_kernels.py). Leaves reference exactly one chunk.
-
-    node_box  [6, N] float32 - min xyz rows 0..2, max xyz rows 3..5
-              (transposed layout: the kernel scalar-reads one node's six
-              components from SMEM rows)
-    node_link [3, N] int32   - row 0: skip target on AABB miss (N = done),
-              row 1: leaf chunk id (-1 for inner nodes),
-              row 2: 1 for leaf, 0 for inner (descend = i + 1)
-    """
-    node_box: np.ndarray
-    node_link: np.ndarray
-
-
-def build_chunk_bvh(c_min: np.ndarray, c_max: np.ndarray) -> ChunkBVH:
-    """Binned-SAH skip-link BVH over chunk AABBs ([C, 3] each), leaf = one
-    chunk. Chunks are already spatially coherent (they are consecutive
-    runs of the triangle-level BVH's reordered leaves), so this tree is
-    the cheap top level - C <= a few thousand, numpy is plenty."""
-    c = len(c_min)
-    if c == 0:
-        raise ValueError("no chunks")
-    centroids = 0.5 * (c_min + c_max)
-
-    import sys
-    old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit, 10000))
-    try:
-        root = _Node()
-        order: list = []
-        global MAX_LEAF_SIZE
-        saved = MAX_LEAF_SIZE
-        MAX_LEAF_SIZE = 1  # leaf == single chunk
-        try:
-            _build_recursive(root, np.arange(c), centroids, c_min, c_max,
-                             order, 0)
-        finally:
-            MAX_LEAF_SIZE = saved
-        sizes: dict = {}
-        n = _subtree_sizes(root, sizes)
-        arrays = {
-            "min": np.zeros((n, 3), np.float32),
-            "max": np.zeros((n, 3), np.float32),
-            "skip": np.zeros(n, np.int64),
-            "first": np.zeros(n, np.int64),
-            "count": np.zeros(n, np.int64),
-        }
-        used = _flatten(root, arrays, 0, n, sizes)
-        assert used == n
-    finally:
-        sys.setrecursionlimit(old_limit)
-
-    # leaf "first" indexes into `order` (the chunk permutation); resolve to
-    # actual chunk ids so the kernel never needs the permutation.
-    order_arr = np.asarray(order, np.int64)
-    is_leaf = arrays["count"] > 0
-    # degenerate-spread leaves may hold >1 chunk; split them is overkill -
-    # instead emit one leaf node per chunk is required. Guard: with
-    # MAX_LEAF_SIZE=1 multi-chunk leaves only occur for coincident
-    # centroids; expand them into chains of single-chunk leaves.
-    if (arrays["count"] > 1).any():
-        return _expand_multi_leaves(arrays, order_arr, n)
-
-    leaf_chunk = np.full(n, -1, np.int64)
-    leaf_chunk[is_leaf] = order_arr[arrays["first"][is_leaf]]
-    node_box = np.concatenate([arrays["min"].T, arrays["max"].T]
-                              ).astype(np.float32)
-    node_link = np.stack([arrays["skip"], leaf_chunk,
-                          is_leaf.astype(np.int64)]).astype(np.int32)
-    return ChunkBVH(node_box=node_box, node_link=node_link)
-
-
-def _expand_multi_leaves(arrays, order_arr, n):
-    """Rewrite multi-chunk leaves (coincident centroids) as runs of
-    single-chunk leaf nodes sharing the parent's skip target."""
-    boxes_min, boxes_max = [], []
-    skip, leaf_chunk, is_leaf = [], [], []
-    # first pass: compute new index of every old node
-    new_idx = np.zeros(n + 1, np.int64)
-    acc = 0
-    counts = arrays["count"]
-    for i in range(n):
-        new_idx[i] = acc
-        acc += int(counts[i]) if counts[i] > 1 else 1
-    new_idx[n] = acc
-    for i in range(n):
-        if counts[i] > 1:
-            tgt = new_idx[arrays["skip"][i]]
-            for j in range(int(counts[i])):
-                boxes_min.append(arrays["min"][i])
-                boxes_max.append(arrays["max"][i])
-                last = j == counts[i] - 1
-                skip.append(tgt if last else new_idx[i] + j + 1)
-                leaf_chunk.append(order_arr[arrays["first"][i] + j])
-                is_leaf.append(1)
-        else:
-            boxes_min.append(arrays["min"][i])
-            boxes_max.append(arrays["max"][i])
-            skip.append(new_idx[arrays["skip"][i]])
-            leaf_chunk.append(order_arr[arrays["first"][i]]
-                              if counts[i] == 1 else -1)
-            is_leaf.append(1 if counts[i] == 1 else 0)
-    node_box = np.concatenate([np.asarray(boxes_min, np.float32).T,
-                               np.asarray(boxes_max, np.float32).T])
-    node_link = np.stack([np.asarray(skip), np.asarray(leaf_chunk),
-                          np.asarray(is_leaf)]).astype(np.int32)
-    return ChunkBVH(node_box=node_box, node_link=node_link)
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,

@@ -1,6 +1,6 @@
 """Flatten a host Model into one device-resident SoA pytree (SceneData).
 
-TPU-native replacement for the reference's BuildAccel + BuildSBT design
+Replacement for the reference's BuildAccel + BuildSBT design
 (`OptixRenderer.cpp:306-374,486-560`): instead of per-mesh device pointers in
 SBT records, everything lives in ONE flat index space - concatenated
 pre-transformed world-space triangles, a per-triangle material id, a material
@@ -24,77 +24,6 @@ from .types import Model, PointLight
 
 TEXTURE_RES = 256  # uniform texture array resolution (bilinear-resampled)
 PAD_MULTIPLE = 8   # pad triangle count so wavefront gathers stay aligned
-MAX_WALK_CHUNKS = 2048  # chunk-BVH leaf count cap: bounds the SMEM-resident
-                        # node arrays (2*C nodes * 36 B) AND the walk sweep
-                        # kernel's scalar-prefetch candidate table
-                        # (GROUP_BLOCKS * C int32, intersect/walk_kernels.py)
-
-
-def _walk_chunk_size(t_pad: int) -> int:
-    """Triangles per walk chunk: 128 (the Mosaic SMEM lane quantum) scaled
-    up in powers of two so n_chunks <= MAX_WALK_CHUNKS."""
-    chunk = 128
-    while t_pad > chunk * MAX_WALK_CHUNKS:
-        chunk *= 2
-    return chunk
-
-
-def _build_walk_arrays(v0, e1, e2, valid):
-    """Pack triangles as [n_chunks, 16, CHUNK] (9 real component rows -
-    v0/e1/e2 xyz - plus 7 zero rows padding the sublane dim to a whole
-    (8,128) tile so a [1, 16, CHUNK] DMA slice is always tile-aligned,
-    wherever Mosaic places the array) for single-DMA leaf fetches
-    and build the chunk-level skip-link BVH (SMEM-resident top level of the
-    hierarchical Pallas kernel). Triangles are already in triangle-BVH leaf
-    order, so consecutive chunks are spatially tight."""
-    from . import bvh as bvh_mod
-
-    t = len(v0)
-    chunk = _walk_chunk_size(t)
-    n_chunks = -(-t // chunk)
-    t_pad = n_chunks * chunk
-    pad = t_pad - t
-
-    def _pad(a, fill):
-        return np.concatenate(
-            [a, np.full((pad,) + a.shape[1:], fill, a.dtype)]) if pad else a
-
-    v0p = _pad(v0.astype(np.float32), 1e10)
-    e1p = _pad(e1.astype(np.float32), 0.0)
-    e2p = _pad(e2.astype(np.float32), 0.0)
-    validp = np.concatenate([valid, np.zeros(pad, bool)]) if pad else valid
-
-    tris = np.concatenate([v0p, e1p, e2p], axis=1)  # [T_pad, 9]
-    walk_tris = np.zeros((n_chunks, 16, chunk), np.float32)
-    walk_tris[:, :9, :] = tris.reshape(n_chunks, chunk, 9).transpose(0, 2, 1)
-
-    # chunk AABBs over valid triangles; empty chunks get a far-away point
-    # box that fails every slab test (cf. intersect/pallas_kernels.py)
-    v1p = v0p + e1p
-    v2p = v0p + e2p
-    big = np.float32(3.4e38)
-    bb_min = np.where(validp[:, None],
-                      np.minimum(np.minimum(v0p, v1p), v2p), big)
-    bb_max = np.where(validp[:, None],
-                      np.maximum(np.maximum(v0p, v1p), v2p), -big)
-    c_min = bb_min.reshape(n_chunks, chunk, 3).min(axis=1)
-    c_max = bb_max.reshape(n_chunks, chunk, 3).max(axis=1)
-    empty = c_min[:, :1] > c_max[:, :1]
-    c_min = np.where(empty, big, c_min)
-    c_max = np.where(empty, big, c_max)
-
-    # 128-tri SUBchunk AABBs (packet-sweep culling grain): same reduction
-    # at the finer granularity, empty subchunks degenerate to a far box
-    n_sub = chunk // 128
-    s_min = bb_min.reshape(n_chunks * n_sub, 128, 3).min(axis=1)
-    s_max = bb_max.reshape(n_chunks * n_sub, 128, 3).max(axis=1)
-    s_empty = s_min[:, :1] > s_max[:, :1]
-    s_min = np.where(s_empty, big, s_min)
-    s_max = np.where(s_empty, big, s_max)
-    sub_box = np.concatenate([s_min.T, s_max.T], axis=0)  # [6, C*n_sub]
-
-    tree = bvh_mod.build_chunk_bvh(c_min, c_max)
-    return walk_tris, tree.node_box, tree.node_link, sub_box
 
 
 class SceneData(NamedTuple):
@@ -131,17 +60,6 @@ class SceneData(NamedTuple):
     bvh_skip: jnp.ndarray    # [N] int32
     bvh_first: jnp.ndarray   # [N] int32
     bvh_count: jnp.ndarray   # [N] int32
-    # Hierarchical Pallas walk kernel data (intersect/walk_kernels.py):
-    # triangles re-packed per chunk for single-DMA leaf fetches, plus the
-    # SMEM-resident chunk-level skip-link BVH (scene/bvh.py build_chunk_bvh).
-    # Empty ([0, ...]) when built with build_bvh=False.
-    walk_tris: jnp.ndarray
-    walk_node_box: jnp.ndarray
-    walk_node_link: jnp.ndarray
-    # per-128-tri SUBchunk AABBs [6, n_chunks * (chunk // 128)] - the
-    # fine-grained culling grain of the packet sweep kernel
-    # (intersect/packet_kernels.py); rows = min xyz, max xyz
-    walk_sub_box: jnp.ndarray
     # Opaque/cutout scene split (integrate/cutout.py occlusion fast path):
     # sub-SceneDatas over just the opaque / just the cutout-capable
     # triangles. Shadow queries then run a plain any-hit on the opaque
@@ -160,11 +78,6 @@ class SceneData(NamedTuple):
     @property
     def num_triangles(self):
         return self.tri_v0.shape[0]
-
-    @property
-    def walk_chunk(self):
-        """Static triangles-per-chunk of the walk layout."""
-        return self.walk_tris.shape[2]
 
     @property
     def num_lights(self):
@@ -198,8 +111,7 @@ def scene_uses_textures(scene: "SceneData") -> bool:
 def scene_flat_shading(scene: "SceneData") -> bool:
     """Static: do the vertex normals equal the geometric normal on every
     real triangle (flat-shaded scene)? True lets the wavefront skip the
-    9-float/lane corner-normal gather + interpolation - shading gathers
-    dominate non-intersection cost on TPU."""
+    9-float/lane corner-normal gather + interpolation."""
     valid = np.asarray(scene.tri_valid)
     e1 = np.asarray(scene.tri_e1)[valid]
     e2 = np.asarray(scene.tri_e2)[valid]
@@ -209,16 +121,27 @@ def scene_flat_shading(scene: "SceneData") -> bool:
     return bool(np.all(np.abs(n - g[:, None, :]) < 1e-5))
 
 
+def _bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] triangle-filter resampling matrix, widened by the
+    scale when shrinking (the antialiased bilinear of common image
+    libraries: pixel centres at i + 0.5, rows normalised to 1)."""
+    scale = n_in / n_out
+    stretch = max(scale, 1.0)
+    centre = (np.arange(n_out) + 0.5) * scale
+    x = np.arange(n_in) + 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(x[None, :] - centre[:, None]) / stretch)
+    return w / w.sum(axis=1, keepdims=True)
+
+
 def _resize_texture(pixels: np.ndarray, res: int) -> np.ndarray:
-    """Bilinear resample [H, W, 4] -> [res, res, 4] via PIL."""
+    """Bilinear resample [H, W, 4] -> [res, res, 4] (rows after columns)."""
     if pixels.shape[0] == res and pixels.shape[1] == res:
         return pixels.astype(np.float32)
-    from PIL import Image
-    out = np.zeros((res, res, 4), np.float32)
-    for c in range(4):
-        img = Image.fromarray(pixels[..., c].astype(np.float32), mode="F")
-        out[..., c] = np.asarray(img.resize((res, res), Image.BILINEAR))
-    return out
+    wx = _bilinear_weights(pixels.shape[1], res)
+    wy = _bilinear_weights(pixels.shape[0], res)
+    cols = np.einsum("xw,hwc->hxc", wx, pixels.astype(np.float64))
+    cols = cols.astype(np.float32).astype(np.float64)
+    return np.einsum("yh,hxc->yxc", wy, cols).astype(np.float32)
 
 
 def _mat_is_cutout_capable(mat, textures, texture_res) -> bool:
@@ -291,18 +214,10 @@ def flatten_model(model: Model, lights=None, texture_res: int = TEXTURE_RES,
         normals, uvs, tri_mat = normals[order], uvs[order], tri_mat[order]
         bvh_arrays = (tree.node_min, tree.node_max, tree.node_skip,
                       tree.node_first, tree.node_count)
-        walk_arrays = _build_walk_arrays(
-            v0, v1 - v0, v2 - v0, np.ones(len(v0), bool))
     else:
         bvh_arrays = (np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
                       np.ones(1, np.int32), np.zeros(1, np.int32),
                       np.zeros(1, np.int32))
-        # sentinel matches the packed [n_chunks, 16, chunk] layout of
-        # _build_walk_arrays (rows 0-8 = tri components, 9-15 spare)
-        walk_arrays = (np.zeros((0, 16, 1), np.float32),
-                       np.zeros((6, 0), np.float32),
-                       np.zeros((3, 0), np.int32),
-                       np.zeros((6, 0), np.float32))
         tri_src_np = np.arange(t_real, dtype=np.int32)
 
     # --- pad to multiple (degenerate far-away triangles never hit)
@@ -412,8 +327,4 @@ def flatten_model(model: Model, lights=None, texture_res: int = TEXTURE_RES,
         bvh_skip=jnp.asarray(bvh_arrays[2]),
         bvh_first=jnp.asarray(bvh_arrays[3]),
         bvh_count=jnp.asarray(bvh_arrays[4]),
-        walk_tris=jnp.asarray(walk_arrays[0]),
-        walk_node_box=jnp.asarray(walk_arrays[1]),
-        walk_node_link=jnp.asarray(walk_arrays[2]),
-        walk_sub_box=jnp.asarray(walk_arrays[3]),
     )

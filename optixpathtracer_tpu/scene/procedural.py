@@ -503,8 +503,7 @@ def scene_hall(detail: float = 1.0):
     equivalent-scale stand-in procedurally). At detail=1.0 it is ~390k
     triangles across all five material types + three textures (checker
     floor via albedo texture, marble columns, alpha-cutout foliage) - the
-    scale class where the chunk-BVH walk kernels are the only viable
-    intersection route on TPU.
+    scale class where only BVH traversal is a viable intersection route.
     """
     d = detail
     textures = [_checker_texture(), _marble_texture(), _leaf_texture()]

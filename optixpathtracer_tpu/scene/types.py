@@ -1,6 +1,6 @@
 """Host-side scene data model: Mesh / Material / Texture / Model.
 
-TPU-native equivalent of reference `source/ModelLoading/{Mesh.h,Model.h,
+JAX equivalent of reference `source/ModelLoading/{Mesh.h,Model.h,
 Texture.h}`: SoA vertex arrays + TRS transform + pbrMetallicRoughness
 material, held in numpy on the host until `flatten.py` bakes everything into
 device-resident SoA buffers (the analog of BuildAccel/BuildSBT uploads,

@@ -70,8 +70,7 @@ def test_plain_intersect_would_block():
 
 def test_split_path_matches_legacy():
     """The flatten-time opaque/cutout split must reproduce the legacy
-    full-scene chain exactly (verified bit-identical on the 338k-tri hall
-    preset on TPU; this pins the property on the quad scene in CI)."""
+    full-scene chain exactly (this pins the property on the quad scene)."""
     scene = _cutout_scene()
     assert scene.opaque_scene is not None and scene.cutout_sub is not None
     legacy = scene._replace(opaque_scene=None, cutout_sub=None)

@@ -61,3 +61,30 @@ def test_grad_step_runs_and_reduces(cornell):
 def test_dryrun_multichip_entrypoint():
     import __graft_entry__
     __graft_entry__.dryrun_multichip(len(jax.devices()))
+
+
+def test_sharded_render_config_any_mesh(cornell):
+    """render_config shards over the mesh it is given - one device is a
+    valid mesh - and matches the same frames on eight devices."""
+    from optixpathtracer_tpu.config import RenderConfig
+    from optixpathtracer_tpu.render import render_config
+    scene, camera = cornell
+    cfg = RenderConfig(scene="scene3_cornell", width=16, height=16, spp=1,
+                       max_bounces=1, intersect="brute", sharded=True,
+                       log_every=0)
+    one = render_config(cfg, scene, camera, mesh=make_mesh(1))
+    eight = render_config(cfg, scene, camera, mesh=make_mesh(8))
+    assert one.shape == (16, 16, 3) and np.isfinite(one).all()
+    close = np.isclose(one, eight, atol=1e-5, rtol=1e-4).all(axis=-1)
+    assert close.mean() > 0.99
+
+
+def test_sharded_render_config_rejects_uneven_rows(cornell):
+    """No quiet fallback to one device: rows must divide over the mesh."""
+    from optixpathtracer_tpu.config import RenderConfig
+    from optixpathtracer_tpu.render import render_config
+    scene, camera = cornell
+    cfg = RenderConfig(scene="scene3_cornell", width=16, height=12, spp=1,
+                       max_bounces=1, sharded=True, log_every=0)
+    with pytest.raises(ValueError, match="not divisible by 8 devices"):
+        render_config(cfg, scene, camera, mesh=make_mesh(8))

@@ -1,17 +1,15 @@
-"""Cross-engine image regression (SURVEY.md section 4 rung 3; VERDICT r3
-item 8): the same scene rendered through every intersection engine must
-produce (near-)identical images, so kernel changes cannot silently shift
-renders. brute is the oracle; walk/pallas/packet run in Pallas interpret
-mode on CPU. The scene is multi-chunk so the hierarchical engines
-exercise real traversal."""
+"""Cross-engine image regression (SURVEY.md section 4 rung 3): the same
+scene rendered through every intersection engine must produce
+(near-)identical images, so engine changes cannot silently shift renders.
+brute is the oracle; the BVH kernel runs in Pallas interpret mode on CPU.
+The scene's BVH has real depth, so traversal is exercised."""
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from optixpathtracer_tpu.camera import Camera
 from optixpathtracer_tpu.integrate import render
 
-from test_walk_intersect import _make
+from test_bvh_kernel import ENGINES, _make
 
 
 @pytest.fixture(scope="module")
@@ -29,13 +27,12 @@ def oracle_image(scene_and_camera):
                              intersect_method="brute"))
 
 
-@pytest.mark.parametrize("method", ["walk", "pallas", "packet"])
+@pytest.mark.parametrize("method", ENGINES)
 def test_engine_renders_match_oracle(scene_and_camera, oracle_image,
                                      method):
     scene, camera = scene_and_camera
-    with pltpu.force_tpu_interpret_mode():
-        img = np.asarray(render(scene, camera, 32, 32, spp=1,
-                                max_bounces=2, intersect_method=method))
+    img = np.asarray(render(scene, camera, 32, 32, spp=1,
+                            max_bounces=2, intersect_method=method))
     # identical hit ids + identical RNG -> images should match to float
     # rounding; a handful of knife-edge pixels may flip between engines
     close = np.isclose(img, oracle_image, atol=1e-5, rtol=1e-4).all(axis=-1)

@@ -82,3 +82,26 @@ def test_flip_black_white_near_one():
     white = np.ones((32, 32, 3))
     f = metrics.flip(black, white)
     assert f > 0.9
+
+
+def test_png_encoder_decodes(tmp_path, hdr_image):
+    """The standard-library PNG encoder writes what a PNG decoder reads
+    back exactly (flipped top-down, like the display)."""
+    from PIL import Image
+    png = str(tmp_path / "t.png")
+    write_png(png, hdr_image)
+    back = np.asarray(Image.open(png).convert("RGB"))
+    np.testing.assert_array_equal(back, to_display(hdr_image)[::-1])
+
+
+@pytest.mark.parametrize("src,res", [((128, 128), 256), ((300, 200), 256),
+                                     ((256, 256), 100)])
+def test_texture_resize_matches_pil(src, res):
+    """flatten's numpy resample reproduces PIL's BILINEAR filter (which it
+    replaced), up- and downscaling."""
+    from PIL import Image
+    from optixpathtracer_tpu.scene.flatten import _resize_texture
+    px = np.random.default_rng(0).random(src + (4,)).astype(np.float32)
+    ref = np.stack([np.asarray(Image.fromarray(px[..., c], mode="F").resize(
+        (res, res), Image.BILINEAR)) for c in range(4)], axis=-1)
+    np.testing.assert_allclose(_resize_texture(px, res), ref, atol=1e-6)

@@ -40,6 +40,20 @@ def _check_structure(tree, n_tris):
     assert (rights > np.flatnonzero(inner)).all()
 
 
+def test_library_built_from_source_into_ignored_dir():
+    """The builder is compiled from bvh_builder.cpp into native/build/,
+    named by the source's hash; no binary is tracked by git."""
+    import os
+    from optixpathtracer_tpu import native
+    path = native.lib_path()
+    assert os.path.exists(path)
+    assert os.path.basename(os.path.dirname(path)) == "build"
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(path)))
+    with open(os.path.join(os.path.dirname(repo), ".gitignore")) as f:
+        assert "optixpathtracer_tpu/native/build/" in f.read().split()
+    assert path == native.lib_path()
+
+
 def test_structure_random():
     v0, v1, v2 = _random_tris(5000)
     tree = build_bvh_native(v0, v1, v2)

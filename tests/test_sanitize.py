@@ -1,4 +1,4 @@
-"""Sanitizer test mode (SURVEY.md section 5.2): the TPU-native analog of the
+"""Sanitizer test mode (SURVEY.md section 5.2): the JAX analog of the
 reference's OptiX validation mode ALL + CUDA_CHECK-everywhere
 (`OptixRenderer.cpp:81-85`, `optix7.h:16-63`).
 
